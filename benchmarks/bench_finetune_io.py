@@ -14,8 +14,8 @@ measures that end-to-end on a synthetic 224² image pack:
   3. times the steady-state wall per step over the real fit loop
      machinery (Prefetcher + run_step, metrics fetched once at the end).
 
-Compare against the compute-only fine-tune step from bench_device.py
-(36.2 ms marginal at B=32).  Run ON TPU:
+Runs on the GPU and refuses to run without one (the loader-only mode
+needs no device):
 
     python benchmarks/bench_finetune_io.py [--images 1024] [--steps 40]
 """
@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from vae_captioning_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+from vae_captioning.utils.compile_cache import enable_compile_cache  # noqa: E402
 enable_compile_cache()
 
 
@@ -41,7 +41,7 @@ def build_dataset(root: str, n_images: int, k: int, vocab: int, t_len: int,
                   threads: int = 8):
     import cv2
 
-    from vae_captioning_tpu.data.native_loader import (RawImageStore,
+    from vae_captioning.data.native_loader import (RawImageStore,
                                                        pack_images_to_raw)
 
     img_dir = os.path.join(root, "imgs")
@@ -151,10 +151,14 @@ def main(argv=None) -> None:
 
     import jax
 
-    from vae_captioning_tpu.config import Config
-    from vae_captioning_tpu.data.batcher import CaptionBatcher
-    from vae_captioning_tpu.train import Trainer
-    from vae_captioning_tpu.utils.prefetch import Prefetcher
+    from vae_captioning.utils import device
+    print(f"device {device.require_gpu()}; {device.nvidia_smi()}",
+          file=sys.stderr)
+
+    from vae_captioning.config import Config
+    from vae_captioning.data.batcher import CaptionBatcher
+    from vae_captioning.train import Trainer
+    from vae_captioning.utils.prefetch import Prefetcher
 
     VOCAB, K = 11500, 5
     cfg = Config(prior="AG", use_c_v=True, fine_tune=True,
@@ -186,13 +190,13 @@ def main(argv=None) -> None:
     stream = step_stream()
     # warmup: compile + fill the pipeline
     for _ in range(6):
-        m = trainer.run_step_arrays(next(stream))
-    float(m["loss"])
+        trainer.run_step_arrays(next(stream))
+    jax.block_until_ready(trainer.state)
 
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        m = trainer.run_step_arrays(next(stream))
-    float(m["loss"])  # one sync at the end
+        trainer.run_step_arrays(next(stream))
+    jax.block_until_ready(trainer.state)  # one sync at the end
     dt = (time.perf_counter() - t0) / args.steps
     store.close()
     print(json.dumps({
@@ -200,8 +204,7 @@ def main(argv=None) -> None:
         "ms_per_step": round(dt * 1000, 2),
         "images_per_sec": round(args.bs / dt, 1),
         "batch": args.bs,
-        "note": "disk->native loader->host batch->device, pipelined; "
-                "compare bench_device.py finetune_step (compute only)",
+        "note": "disk->native loader->host batch->device, pipelined",
     }))
 
 

@@ -11,7 +11,7 @@ print).  Usage:
 
 import argparse
 
-from vae_captioning_tpu.generate import Generator
+from vae_captioning.generate import Generator
 
 
 def main() -> None:

@@ -32,7 +32,7 @@ RUN="${3:-normal_cv_ref}"
 read -r -a EXTRA <<< "${RECIPE_EXTRA_ARGS:-}"
 
 # 1. train: Normal prior + cluster vectors, reference defaults
-python -m vae_captioning_tpu.cli \
+python -m vae_captioning.cli \
   --coco_dir "$COCO_DIR" \
   --c_v --prior Normal \
   --checkpoint "$RUN" --gen_name "$RUN" \
@@ -41,7 +41,7 @@ python -m vae_captioning_tpu.cli \
 
 # 2. inference: beam search, beam 10 ("set according to papers baselines",
 #    utils/parameters.py:16-18) → val_${RUN}.json / test_${RUN}.json
-python -m vae_captioning_tpu.cli --mode inference \
+python -m vae_captioning.cli --mode inference \
   --coco_dir "$COCO_DIR" \
   --c_v --prior Normal \
   --checkpoint "$RUN" --gen_name "$RUN" \
@@ -51,6 +51,6 @@ python -m vae_captioning_tpu.cli --mode inference \
 # 3. score the val split against ground truth (PTB-tokenized BLEU-1..4 +
 #    CIDEr-D, validated against nltk / hand-derived constants in
 #    tests/test_eval.py) — compare CIDEr-D to the reference's ~0.8
-python -m vae_captioning_tpu.eval.scorers \
+python -m vae_captioning.eval.scorers \
   --results "val_${RUN}.json" \
   --annotations "$COCO_DIR/annotations/captions_val2014.json"

@@ -22,18 +22,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vae_captioning_tpu.utils.compile_cache import enable_compile_cache
+from vae_captioning.utils.compile_cache import enable_compile_cache
 enable_compile_cache()
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data.batcher import Batch
-from vae_captioning_tpu.data.tokenizer import tokenize_caption
-from vae_captioning_tpu.data.vocabulary import Vocabulary
-from vae_captioning_tpu.eval.scorers import cider_d, corpus_bleu
-from vae_captioning_tpu.inference import make_decode_fns
-from vae_captioning_tpu.models.cvae import CVAEModel
-from vae_captioning_tpu.ops.decoding import tokens_to_text
-from vae_captioning_tpu.train import (
+from vae_captioning.config import Config
+from vae_captioning.data.batcher import Batch
+from vae_captioning.data.tokenizer import tokenize_caption
+from vae_captioning.data.vocabulary import Vocabulary
+from vae_captioning.eval.scorers import cider_d, corpus_bleu
+from vae_captioning.inference import make_decode_fns
+from vae_captioning.models.cvae import CVAEModel
+from vae_captioning.ops.decoding import tokens_to_text
+from vae_captioning.train import (
     TrainState, _flatten_batch, init_model, make_optimizer, make_train_step)
 
 OBJECTS = ["dog", "cat", "horse", "bus", "car", "boat", "bird", "bear",
@@ -334,8 +334,8 @@ def main():
                      for c in caps[n_train + i]]
     bleu = corpus_bleu(hyps, refs)
     cider = cider_d(hyps, refs)
-    from vae_captioning_tpu.eval.meteor import corpus_meteor_es
-    from vae_captioning_tpu.eval.scorers import rouge_l
+    from vae_captioning.eval.meteor import corpus_meteor_es
+    from vae_captioning.eval.scorers import rouge_l
     keys = sorted(hyps)
     meteor = corpus_meteor_es([hyps[k].split() for k in keys],
                               [[r.split() for r in refs[k]] for k in keys])

@@ -7,11 +7,11 @@
 // a 32-image gather is ~4.8 MB of scattered reads that Python+h5py
 // serialize.  This library mmaps the packed record file once and
 // gathers rows with N worker threads while madvise(WILLNEED) warms the
-// next batch, so the TPU never waits on host IO.
+// next batch, so the accelerator never waits on host IO.
 //
 // No external dependencies: POSIX mmap + pthreads via std::thread.
 // Exposed as a C ABI for ctypes (see
-// vae_captioning_tpu/data/native_loader.py).
+// vae_captioning/data/native_loader.py).
 
 #include <atomic>
 #include <condition_variable>

@@ -28,9 +28,9 @@ def main() -> None:
     import numpy as np
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from vae_captioning_tpu.config import Config
-    from vae_captioning_tpu.data.batcher import Batch
-    from vae_captioning_tpu.train import Trainer
+    from vae_captioning.config import Config
+    from vae_captioning.data.batcher import Batch
+    from vae_captioning.train import Trainer
 
     cfg = Config(embed_size=16, latent_size=8, encoder_hidden=16,
                  decoder_hidden=16, gen_z_samples=4, batch_size=16,
@@ -66,11 +66,11 @@ def main() -> None:
     # discontinuous — exact token equality is only guaranteed for
     # identical params.
     import jax.numpy as jnp
-    from vae_captioning_tpu.data.vocabulary import Vocabulary
-    from vae_captioning_tpu.inference import make_decode_fns
-    from vae_captioning_tpu.models.cvae import CVAEModel
-    from vae_captioning_tpu.parallel import mesh as pmesh
-    from vae_captioning_tpu.train import init_model
+    from vae_captioning.data.vocabulary import Vocabulary
+    from vae_captioning.inference import make_decode_fns
+    from vae_captioning.models.cvae import CVAEModel
+    from vae_captioning.parallel import mesh as pmesh
+    from vae_captioning.train import init_model
 
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
                        + [f"w{i}" for i in range(cfg.vocab_size - 4)])

@@ -1,6 +1,6 @@
 """Test-only oracle: a structure-faithful reimplementation of the official
 pycocoevalcap (tylin/coco-caption) scorers, for cross-validating
-``vae_captioning_tpu.eval.scorers`` (VERDICT r2 #1a).
+``vae_captioning.eval.scorers`` (VERDICT r2 #1a).
 
 The official package is not installable in this environment (no network,
 and its tokenizer shells out to a CoreNLP jar), so this module re-derives

@@ -7,12 +7,12 @@ import os
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data import cluster_vectors as cv_lib
-from vae_captioning_tpu.data.batcher import CaptionBatcher, bucket_length, repartition
-from vae_captioning_tpu.data.coco import CocoCaptions, coco_paths
-from vae_captioning_tpu.data.tokenizer import detokenize, tokenize_caption
-from vae_captioning_tpu.data.vocabulary import Vocabulary
+from vae_captioning.config import Config
+from vae_captioning.data import cluster_vectors as cv_lib
+from vae_captioning.data.batcher import CaptionBatcher, bucket_length, repartition
+from vae_captioning.data.coco import CocoCaptions, coco_paths
+from vae_captioning.data.tokenizer import detokenize, tokenize_caption
+from vae_captioning.data.vocabulary import Vocabulary
 
 
 # ---------------------------------------------------------------- tokenizer
@@ -253,7 +253,7 @@ def test_config_roundtrip(tmp_path):
 
 
 def test_config_cli_flags():
-    from vae_captioning_tpu.config import parse_args
+    from vae_captioning.config import parse_args
     cfg = parse_args(["--lr", "0.001", "--bs", "16", "--prior", "AG",
                       "--c_v", "--no_encoder", "--set", "seed=7"])
     assert cfg.learning_rate == 0.001
@@ -267,7 +267,7 @@ def test_config_set_coerces_optional_int():
     """--set on an Optional[int] field (default None) must coerce by the
     declared annotation, not the runtime None (which has no type to
     dispatch on) — a string '4096' batch size breaks the batcher."""
-    from vae_captioning_tpu.config import parse_args
+    from vae_captioning.config import parse_args
     cfg = parse_args(["--set", "gen_batch_size=4096"])
     assert cfg.gen_batch_size == 4096
     assert isinstance(cfg.gen_batch_size, int)
@@ -277,7 +277,7 @@ def test_config_reference_readme_ag_example():
     """The reference README's exact AG training command must parse
     verbatim (ref README.md usage section), incl. the ignored --gpu."""
     import warnings
-    from vae_captioning_tpu.config import parse_args
+    from vae_captioning.config import parse_args
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         cfg = parse_args(
@@ -340,7 +340,7 @@ def test_cluster_vector_fallback_counting():
 def test_batch_carries_cv_fallback_count(mini_coco, tmp_path):
     # the batcher attaches the per-batch count; generate_captions
     # aggregates it into the caller's stats dict (ADVICE r3)
-    from vae_captioning_tpu.data.dataset import Data
+    from vae_captioning.data.dataset import Data
     cfg = Config(coco_dir=mini_coco, prior="AG",
                  cache_dir=str(tmp_path / "cache"),
                  obj_vectors_dir=str(tmp_path / "obj"))
@@ -353,7 +353,7 @@ def test_batch_carries_cv_fallback_count(mini_coco, tmp_path):
 
 
 def _cv_data(mini_coco, tmp_path):
-    from vae_captioning_tpu.data.dataset import Data
+    from vae_captioning.data.dataset import Data
     cfg = Config(coco_dir=mini_coco, prior="AG",
                  cache_dir=str(tmp_path / "cache"),
                  obj_vectors_dir=str(tmp_path / "obj"))
@@ -415,3 +415,16 @@ def test_tokenizer_unicode_and_clipping(tmp_path):
     path.write_text(json.dumps(j))
     caps = CocoCaptions(str(path), max_length=10)
     assert len(caps.captions["a.jpg"][0]) == 10
+
+
+@pytest.mark.parametrize("module,package", [("cv2", "opencv-python"),
+                                            ("h5py", "h5py"),
+                                            ("tqdm", "tqdm")])
+def test_offline_tool_import_error_names_package(monkeypatch, module,
+                                                 package):
+    import sys
+
+    from vae_captioning.data.images import optional_import
+    monkeypatch.setitem(sys.modules, module, None)
+    with pytest.raises(ImportError, match=f"pip install {package}"):
+        optional_import(module, package)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.ops.decoding import (
+from vae_captioning.ops.decoding import (
     beam_search, sample_decode, tokens_to_text)
 
 V = 12          # toy vocab

@@ -23,7 +23,7 @@ TINY = [
 @pytest.fixture(scope="module")
 def trained_run(mini_coco, vgg_npz, tmp_path_factory):
     """One tiny training run via the CLI, shared by the checks below."""
-    from vae_captioning_tpu.cli import main
+    from vae_captioning.cli import main
     workdir = str(tmp_path_factory.mktemp("e2e"))
     cwd = os.getcwd()
     os.chdir(workdir)
@@ -55,7 +55,7 @@ def test_training_caches_features_and_vocab(trained_run):
 
 
 def test_inference_writes_coco_eval_json(trained_run, mini_coco):
-    from vae_captioning_tpu.cli import main
+    from vae_captioning.cli import main
     cwd = os.getcwd()
     os.chdir(trained_run)
     try:
@@ -84,11 +84,11 @@ def test_inference_writes_coco_eval_json(trained_run, mini_coco):
 
 
 def test_inference_gen_batch_size_invariant(trained_run, mini_coco):
-    """--set gen_batch_size=N (TPU-native addition: batch inference at
-    the decode-throughput knee, PERF.md round-5 ladders) must produce
+    """--set gen_batch_size=N (batch inference at a large decode batch)
+    must produce
     captions identical to the default batch_size decode — batching is a
     throughput lever, never a results change."""
-    from vae_captioning_tpu.cli import main
+    from vae_captioning.cli import main
     cwd = os.getcwd()
     os.chdir(trained_run)
     try:
@@ -118,7 +118,7 @@ def test_generator_with_detector_vectors(trained_run, mini_coco, vgg_npz):
     detector-derived cluster vector (VERDICT r1 #9: the reference's
     _c_v_generator stub, closed for real) and cache decode fns per beam
     size instead of recompiling (ADVICE r1)."""
-    from vae_captioning_tpu.generate import Generator
+    from vae_captioning.generate import Generator
     img_dir = os.path.join(mini_coco, "images", "test2014")
     img = os.path.join(img_dir, sorted(os.listdir(img_dir))[0])
     det_json = os.path.join(trained_run, "dets.json")
@@ -149,7 +149,7 @@ def test_generator_with_detector_vectors(trained_run, mini_coco, vgg_npz):
 
 
 def test_restore_continues_from_checkpoint(trained_run, mini_coco, vgg_npz):
-    from vae_captioning_tpu.cli import main
+    from vae_captioning.cli import main
     cwd = os.getcwd()
     os.chdir(trained_run)
     try:

@@ -6,7 +6,7 @@ import math
 
 import pytest
 
-from vae_captioning_tpu.eval.scorers import (
+from vae_captioning.eval.scorers import (
     cider_d, corpus_bleu, score_captions_json)
 
 
@@ -74,7 +74,7 @@ def test_ptb_tokenize_matches_corenlp_cases():
     """Outputs must equal what coco-caption's PTBTokenizer (CoreNLP +
     PUNCTUATIONS drop + lowercase) produces for these caption-domain
     inputs."""
-    from vae_captioning_tpu.eval.scorers import ptb_tokenize
+    from vae_captioning.eval.scorers import ptb_tokenize
     cases = {
         "A man rides a horse.": ["a", "man", "rides", "a", "horse"],
         "The dog doesn't run!": ["the", "dog", "does", "n't", "run"],
@@ -200,7 +200,7 @@ def test_score_captions_json(tmp_path):
 
 
 def test_metric_logger(tmp_path):
-    from vae_captioning_tpu.utils.logging import MetricLogger
+    from vae_captioning.utils.logging import MetricLogger
     logger = MetricLogger(str(tmp_path), echo=False, run_name="t")
     logger.log(1, {"loss": 1.5}, epoch=0)
     logger.log(2, {"loss": 1.2}, epoch=0)
@@ -214,7 +214,7 @@ def test_metric_logger(tmp_path):
 # ---------------------------------------------------------------- ROUGE-L
 
 def test_rouge_l_perfect_match():
-    from vae_captioning_tpu.eval.scorers import rouge_l
+    from vae_captioning.eval.scorers import rouge_l
     h = {"1": "the cat sat on the mat"}
     r = {"1": ["the cat sat on the mat"]}
     assert rouge_l(h, r) == pytest.approx(1.0)
@@ -224,7 +224,7 @@ def test_rouge_l_hand_derived():
     """p = r = 3/4 → F_β = 3/4 regardless of β (p == r cancels it);
     and max-precision / max-recall may come from DIFFERENT references
     (pycocoevalcap Rouge.calc_score semantics)."""
-    from vae_captioning_tpu.eval.scorers import rouge_l
+    from vae_captioning.eval.scorers import rouge_l
     assert rouge_l({"1": "a b c d"}, {"1": ["a c d e"]}) == \
         pytest.approx(0.75)
     # ref1: p=1, r=3/7; ref2: p=2/3, r=2/3 → max p=1, max r=2/3
@@ -237,7 +237,7 @@ def test_rouge_l_hand_derived():
 
 def test_rouge_l_in_json_scores(tmp_path):
     import json
-    from vae_captioning_tpu.eval.scorers import score_captions_json
+    from vae_captioning.eval.scorers import score_captions_json
     res = [{"image_id": 1, "caption": "a dog runs in the park"}]
     gt = {"annotations": [
         {"image_id": 1, "caption": "a dog runs in the park."},

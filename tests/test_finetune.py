@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.models.finetune import FineTuneModel
-from vae_captioning_tpu.train import (
+from vae_captioning.config import Config
+from vae_captioning.models.finetune import FineTuneModel
+from vae_captioning.train import (
     TrainState, init_model, make_finetune_optimizer, make_train_step)
 
 VOCAB = 30
@@ -99,8 +99,8 @@ def test_finetune_frozen_conv():
 
 
 def test_finetune_decode_from_images():
-    from vae_captioning_tpu.data.vocabulary import Vocabulary
-    from vae_captioning_tpu.inference import make_decode_fns
+    from vae_captioning.data.vocabulary import Vocabulary
+    from vae_captioning.inference import make_decode_fns
     cfg = ft_config(gen_max_len=5, beam_size=2)
     model, params = init_model(cfg, jax.random.PRNGKey(0))
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]

@@ -13,7 +13,7 @@ import random
 
 import pytest
 
-from vae_captioning_tpu.eval.meteor import (corpus_meteor_es, meteor_es,
+from vae_captioning.eval.meteor import (corpus_meteor_es, meteor_es,
                                             porter_stem)
 
 nltk = pytest.importorskip("nltk")

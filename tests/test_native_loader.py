@@ -7,7 +7,7 @@ import time
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.data.native_loader import (
+from vae_captioning.data.native_loader import (
     RawImageStore, load_library, pack_images_to_raw)
 
 
@@ -96,7 +96,7 @@ def test_gather_throughput(packed):
 def test_hdf5_store_scatter_order(tmp_path, mini_coco):
     """Hdf5ImageStore must return rows in request order despite h5py's
     increasing-index requirement (ref utils/batch_gen.py:152-162)."""
-    from vae_captioning_tpu.data.images import Hdf5ImageStore, pack_images_to_hdf5
+    from vae_captioning.data.images import Hdf5ImageStore, pack_images_to_hdf5
     out = str(tmp_path / "imgs.h5")
     index = pack_images_to_hdf5(
         [os.path.join(mini_coco, "images", "train2014")], out, size=32)
@@ -117,9 +117,9 @@ def test_hdf5_store_scatter_order(tmp_path, mini_coco):
 def test_batcher_prefetches_next_batch(packed, mini_coco):
     """train_batches must call image_store.prefetch with the NEXT chunk."""
     out, index = packed
-    from vae_captioning_tpu.data.coco import CocoCaptions, coco_paths
-    from vae_captioning_tpu.data.vocabulary import Vocabulary
-    from vae_captioning_tpu.data.batcher import CaptionBatcher
+    from vae_captioning.data.coco import CocoCaptions, coco_paths
+    from vae_captioning.data.vocabulary import Vocabulary
+    from vae_captioning.data.batcher import CaptionBatcher
     paths = coco_paths(mini_coco)
     caps = CocoCaptions(paths["train_cap_json"])
     vocab = Vocabulary.build(caps.all_tokenized(), keep_words=1)

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.ops import distributions as dist
-from vae_captioning_tpu.ops.lstm import LSTMCell, LSTMStack
+from vae_captioning.ops import distributions as dist
+from vae_captioning.ops.lstm import LSTMCell, LSTMStack
 
 
 # ---------------------------------------------------------------- KL math
@@ -159,7 +159,7 @@ def test_kl_gmm_zero_cv_falls_back_to_uniform():
 def test_compute_loss_gmm_true_kl_opt_in():
     """Config.gmm_true_kl routes the GMM prior through kl_gmm; default
     keeps the reference's standard-normal placeholder."""
-    from vae_captioning_tpu.models.cvae import compute_loss
+    from vae_captioning.models.cvae import compute_loss
     rng = np.random.default_rng(5)
     B, T, V, L, C = 4, 6, 20, 8, 90
     outputs = {
@@ -333,7 +333,7 @@ def test_lstm_forget_bias():
 # ---------------------------------------------------------------- layers
 
 def test_highway_network():
-    from vae_captioning_tpu.ops.layers import HighwayNetwork
+    from vae_captioning.ops.layers import HighwayNetwork
     hw = HighwayNetwork(num_layers=2)
     x = jnp.ones((4, 16))
     params = hw.init(jax.random.PRNGKey(0), x)
@@ -342,12 +342,10 @@ def test_highway_network():
     # with zeroed params the gate is sigmoid(-1)≈0.27 → mostly carry
     zeroed = jax.tree.map(jnp.zeros_like, params)
     # restore the -1 bias on the transform gates
-    import flax
-    flat = flax.traverse_util.flatten_dict(zeroed)
-    for path in flat:
-        if path[-2].startswith("t_") and path[-1] == "bias":
-            flat[path] = flat[path] - 1.0
-    zeroed = flax.traverse_util.unflatten_dict(flat)
+    zeroed = jax.tree_util.tree_map_with_path(
+        lambda path, x: x - 1.0 if (path[-2].key.startswith("t_")
+                                    and path[-1].key == "bias") else x,
+        zeroed)
     y0 = hw.apply(zeroed, x)
     carry = 1 / (1 + np.exp(-1.0))  # 1 - sigmoid(-1) = sigmoid(1)
     np.testing.assert_allclose(np.asarray(y0), carry**2, rtol=1e-4)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.parallel import mesh as mesh_lib
+from vae_captioning.parallel import mesh as mesh_lib
 
 
 def test_mesh_helpers():
@@ -88,8 +88,8 @@ def test_prepare_process_batch_guards():
 def test_multistep_sharded_trajectory_matches_single_device():
     """≥5 train steps on the 8-device dp mesh must track the unsharded
     param trajectory (loss each step + final params)."""
-    from vae_captioning_tpu.config import Config
-    from vae_captioning_tpu.train import (TrainState, init_model,
+    from vae_captioning.config import Config
+    from vae_captioning.train import (TrainState, init_model,
                                           make_optimizer, make_train_step)
 
     # SGD, not Adam: Adam's sqrt(v) normalization turns float32
@@ -177,9 +177,9 @@ def test_multihost_two_process_training():
     np.testing.assert_allclose(results[0], results[1], rtol=1e-6)
 
     # single-process reference on this process's own 8-device mesh
-    from vae_captioning_tpu.config import Config
-    from vae_captioning_tpu.data.batcher import Batch
-    from vae_captioning_tpu.train import Trainer
+    from vae_captioning.config import Config
+    from vae_captioning.data.batcher import Batch
+    from vae_captioning.train import Trainer
 
     cfg = Config(embed_size=16, latent_size=8, encoder_hidden=16,
                  decoder_hidden=16, gen_z_samples=4, batch_size=16,
@@ -212,9 +212,9 @@ def test_multihost_two_process_training():
     assert results_full[0]["decode_checksum"] == \
         results_full[1]["decode_checksum"]
 
-    from vae_captioning_tpu.data.vocabulary import Vocabulary
-    from vae_captioning_tpu.inference import make_decode_fns
-    from vae_captioning_tpu.models.cvae import CVAEModel
+    from vae_captioning.data.vocabulary import Vocabulary
+    from vae_captioning.inference import make_decode_fns
+    from vae_captioning.models.cvae import CVAEModel
 
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
                        + [f"w{i}" for i in range(cfg.vocab_size - 4)])
@@ -223,7 +223,7 @@ def test_multihost_two_process_training():
     # same FRESH seed-deterministic params as the workers (trained
     # params drift between Gloo and XLA reduction orders; argmax is
     # discontinuous, so exact equality needs identical params)
-    from vae_captioning_tpu.train import init_model
+    from vae_captioning.train import init_model
     _, decode_params = init_model(cfg, jax.random.PRNGKey(cfg.seed))
     rngd = np.random.default_rng(99)
     Bg = 16
@@ -240,11 +240,11 @@ def test_multihost_two_process_training():
 def test_sharded_beam_decode_matches_unsharded():
     """Decode with the batch sharded over the dp mesh must equal the
     single-device result (decode is embarrassingly parallel, SURVEY §5)."""
-    from vae_captioning_tpu.config import Config
-    from vae_captioning_tpu.data.vocabulary import Vocabulary
-    from vae_captioning_tpu.inference import make_decode_fns
-    from vae_captioning_tpu.models.cvae import CVAEModel
-    from vae_captioning_tpu.train import init_model
+    from vae_captioning.config import Config
+    from vae_captioning.data.vocabulary import Vocabulary
+    from vae_captioning.inference import make_decode_fns
+    from vae_captioning.models.cvae import CVAEModel
+    from vae_captioning.train import init_model
 
     cfg = Config(embed_size=16, latent_size=8, encoder_hidden=16,
                  decoder_hidden=16, gen_z_samples=4, prior="AG",

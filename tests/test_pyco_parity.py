@@ -38,7 +38,7 @@ import json
 import numpy as np
 import pytest
 
-from vae_captioning_tpu.eval.scorers import (
+from vae_captioning.eval.scorers import (
     cider_d, corpus_bleu, ptb_tokenize, rouge_l, score_captions_json)
 
 from pycocoevalcap_oracle import (
