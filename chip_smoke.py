@@ -28,9 +28,11 @@ The last stdout line is ``{"ok": true, "device": {"platform": "gpu",
 
 ``--four-cards`` runs only the data-parallel path on four cards, against
 one card: 5 train steps on a 4-device ``dp`` mesh against the same global
-batches on one device, then (after the one-device model has trained 20
-steps, as in (c)) a sharded beam-3 decode against a single-device
-decode.
+batches on one device; then, on the one-device model trained 20 steps as
+in (c), sharded beam-3 decode against one card: token for token against
+one card decoding the same four quarters (z at its mean), and against
+one card decoding the whole batch on the kernel, plain XLA and float32
+paths, with the first layer where the two part printed.
 
   python chip_smoke.py [--four-cards]
 """
@@ -54,27 +56,42 @@ B_TRAIN, K_CAPS, TRAIN_STEPS = 256, 5, 20
 GEN_BATCH = 4096
 
 # bf16 keeps 8 significant bits: each operand rounds by up to 2^-9
-# relative.  Against a float32 reference at "highest" precision the
-# step-0 loss, its reconstruction (a mean of ~10k per-token
-# cross-entropies) and KL terms, and the global gradient norm stay within
-# these relative bounds; the decode log-probs and kernel values are sums
-# of 512 rounded products, within LOGIT_ATOL.
-LOSS_RTOL = 1e-2
-GRAD_NORM_RTOL = 5e-2
+# relative.  The decode log-probs and kernel values are sums of 512
+# rounded products against a float32 reference at "highest", within
+# LOGIT_ATOL.
 LOGIT_ATOL = 5e-2
+# Step 0 against float32 at "highest".  At random init the loss barely
+# depends on precision (rec_loss is ~ln V either way): LOSS_RTOL only
+# catches a dropped or mis-scaled term, each of which moves the loss by
+# more than 2 %.  Precision shows in the gradient: ||g - g_ref|| /
+# ||g_ref|| over all parameters (GRAD_RTOL) and for the worst leaf
+# (GRAD_LEAF_RTOL).  On the H100 the bf16 path reads 9.5e-4 and 7.1e-3;
+# the same step with its weights rounded to 5 mantissa bits reads 5.5e-3
+# and 1.3e-2, and to 3 (fp8 e4m3's) 2.3e-2 and 5.4e-2.  Each limit sits
+# between the sound path and the controls; the 3-bit control runs every
+# time and must fail them.
+LOSS_RTOL = 1e-3
+GRAD_RTOL = 2.5e-3
+GRAD_LEAF_RTOL = 2e-2
+CONTROL_MANTISSA_BITS = 3
+# beam-3 kernel against plain XLA on one card: on the same hidden state
+# the two give the same top-k values and indices and logsumexps within
+# 1e-6, which flips only exact near-ties (0-1 of 4,096 captions)
+KERNEL_SAME_CAPTIONS = 0.999
 # four cards against one: the gradient all-reduce sums in another order,
 # so params drift by float32 noise; Adam moves a parameter by at most
 # about lr per step, which bounds the drift after 5 steps
 DP_LOSS_RTOL = 1e-3
 DP_PARAM_ATOL = 5 * 5e-4
-# sharded decode: each card runs the LSTM-step GEMM on a quarter of the
-# rows, and cuBLAS sums a different row count in another order.  The
-# hidden state is rounded to bf16 for the logits head, so a last-bit
-# difference can move a logit by a bf16 step (~1e-2) and flip a near-tied
-# beam: about 2 % of captions on the H100.  A partitioning fault (rows on
-# the wrong card, features paired with the wrong captions) would change
-# nearly all of them.
-DP_SAME_CAPTIONS = 0.95
+# sharded decode against one card decoding the whole batch: the image
+# embedding (a float32 GEMM with K = 4,096) runs at 1,024 rows per card
+# instead of 4,096 and rounds differently; the bf16 casts downstream
+# turn that into flipped near-tied beams for ~2 % of captions.  A fault
+# on one card's rows would leave about 75 % identical overall and near
+# 0 % on that quarter.  Decoding the same quarters on one card with z at
+# its mean (the draw is per batch shape) must give the same tokens.
+DP_SAME_CAPTIONS = 0.97
+DP_SAME_PER_CARD = 0.95
 DP_SCORE_ATOL = 5e-2
 
 
@@ -162,6 +179,40 @@ def phase_kernel():
         del h, logits
 
 
+def step0_gradient_errors(trainer, f32, batch):
+    """Step-0 gradient of ``trainer`` (bf16) and of a control (the same
+    step with the weights rounded to CONTROL_MANTISSA_BITS), each against
+    ``f32`` at "highest": (||g - g_ref|| / ||g_ref|| over all leaves,
+    the worst leaf's, that leaf's path)."""
+    import jax
+
+    from vae_captioning.train import make_loss_fn
+
+    arrays = trainer._device_batch(batch)
+
+    def grads(tr, params, precision=None):
+        fn = jax.jit(jax.grad(make_loss_fn(tr.model, tr.cfg), has_aux=True))
+        with jax.default_matmul_precision(precision):
+            g, _ = fn(params, tr.state.step, *arrays, tr._rng)
+        return {jax.tree_util.keystr(p): np.asarray(x, np.float64)
+                for p, x in jax.tree_util.tree_leaves_with_path(g)}
+
+    ref = grads(f32, f32.state.params, "highest")
+
+    def errors(g):
+        leaf = {k: np.linalg.norm(g[k] - r) / np.linalg.norm(r)
+                for k, r in ref.items()}
+        worst = max(leaf, key=leaf.get)
+        total = np.sqrt(sum(np.sum((g[k] - r) ** 2) for k, r in ref.items())
+                        / sum(np.sum(r ** 2) for r in ref.values()))
+        return float(total), float(leaf[worst]), worst
+
+    params = trainer.state.params
+    coarse = jax.tree.map(lambda x: jax.lax.reduce_precision(
+        x, exponent_bits=8, mantissa_bits=CONTROL_MANTISSA_BITS), params)
+    return errors(grads(trainer, params)), errors(grads(trainer, coarse))
+
+
 def phase_train():
     import jax
 
@@ -175,6 +226,7 @@ def phase_train():
     trainer = Trainer(flagship_config())
 
     f32 = Trainer(flagship_config(compute_dtype="float32"))
+    grad_err, ctl_err = step0_gradient_errors(trainer, f32, batches[0])
     with jax.default_matmul_precision("highest"):
         ref = {k: float(v) for k, v in f32.run_step(batches[0]).items()}
     del f32
@@ -194,15 +246,22 @@ def phase_train():
         log("c", f"step 0 {name}: bf16 {m0[name]:.6f} | f32 highest "
                  f"{ref[name]:.6f} | rel diff "
                  f"{abs(m0[name] - ref[name]) / abs(ref[name]):.3e}")
+    log("c", f"step 0 gradient vs f32 highest, ||g - g_ref|| / ||g_ref||: "
+             f"bf16 {grad_err[0]:.3e} (worst leaf {grad_err[1]:.3e} "
+             f"{grad_err[2]}); control, weights at "
+             f"{CONTROL_MANTISSA_BITS} mantissa bits: {ctl_err[0]:.3e} "
+             f"(worst leaf {ctl_err[1]:.3e} {ctl_err[2]}); limits "
+             f"{GRAD_RTOL:g}, {GRAD_LEAF_RTOL:g}")
     log("c", f"losses: {[round(x, 4) for x in losses]}")
     log("c", f"first step (compile) {t_compile:.1f} s, then "
              f"{dt * 1e3:.1f} ms/step (host clock, includes batch upload)")
     for name in ("loss", "rec_loss", "kld"):
         check(abs(m0[name] - ref[name]) <= LOSS_RTOL * abs(ref[name]),
               f"bf16 step-0 {name} off the float32 reference")
-    check(abs(m0["grad_norm"] - ref["grad_norm"])
-          <= GRAD_NORM_RTOL * ref["grad_norm"],
-          "bf16 step-0 gradient norm off the float32 reference")
+    check(grad_err[0] <= GRAD_RTOL and grad_err[1] <= GRAD_LEAF_RTOL,
+          "bf16 step-0 gradient off the float32 reference")
+    check(ctl_err[0] > GRAD_RTOL and ctl_err[1] > GRAD_LEAF_RTOL,
+          "the gradient limits pass a lower-precision control")
     check(np.isfinite(losses).all(), "non-finite loss")
     check(np.mean(losses[-3:]) < 0.98 * losses[0], "loss did not fall")
     stats = jax.devices()[0].memory_stats() or {}
@@ -284,7 +343,8 @@ def phase_decode(trainer, vocab):
     log("e", f"beam3 kernel vs plain XLA: identical captions {same:.4f} "
              f"of {GEN_BATCH}; max|dscore| on identical rows "
              f"{dscore.max() if rows.any() else float('nan'):.3e}")
-    check(same >= 0.95, "kernel and XLA beam-3 decodes disagree")
+    check(same >= KERNEL_SAME_CAPTIONS,
+          "kernel and XLA beam-3 decodes disagree")
 
     # first-step log-probs against the float32 reference
     model = CVAEModel.from_config(cfg)
@@ -339,6 +399,8 @@ def four_cards():
 
     from vae_captioning.data.synthetic import PeakedBatcher
     from vae_captioning.inference import make_decode_fns
+    from vae_captioning.models.cvae import CVAEModel
+    from vae_captioning.ops.layers import dense
     from vae_captioning.parallel import mesh as mesh_lib
     from vae_captioning.train import Trainer
 
@@ -371,30 +433,85 @@ def four_cards():
     check(rel <= DP_LOSS_RTOL, "dp loss off the single-device loss")
     check(diff <= DP_PARAM_ATOL, "dp params off the single-device params")
 
-    # sharded beam-3 decode against single-device decode, on a model
-    # trained as in phase (c)
+    # sharded beam-3 decode against one card, on a model trained as in
+    # phase (c)
     for b in batches[5:]:
         tr1.run_step(b)
-    cfg = flagship_config(beam_size=3)
     params = tr1.state.params
     pool = PeakedBatcher(VOCAB, vocab.bos_id, vocab.eos_id, GEN_BATCH,
                          seed=5)
     batch = next(pool.eval_batches())
+    inputs = (batch.features, batch.cluster_vectors)
     key = jax.random.PRNGKey(3)
-    out = {}
-    for name, mesh in (("dp4", mesh4), ("single", mesh1)):
-        fn = make_decode_fns(tr1.model, cfg, vocab, mesh=mesh)["beam_search"]
-        feats, cv = mesh_lib.shard_batch(
-            (batch.features, batch.cluster_vectors), mesh)
-        out[name] = [np.asarray(x) for x in
-                     fn(mesh_lib.replicate(params, mesh), feats, cv, key)]
-    same = np.all(out["dp4"][0] == out["single"][0], axis=1)
-    ds = np.abs(out["dp4"][1] - out["single"][1])[same].max()
-    log("4", f"beam3 decode 4 vs 1 card: identical captions "
-             f"{same.mean():.5f} of {GEN_BATCH}, max|dscore| on them "
+    model = tr1.model
+
+    def on(mesh, rows=slice(None)):
+        feats, cv = mesh_lib.shard_batch(tuple(x[rows] for x in inputs),
+                                         mesh)
+        return mesh_lib.replicate(params, mesh), feats, cv, key
+
+    # where the two part: the first layer that differs, with z drawn
+    # (decode std 0.1) and at its mean (std 0)
+    mean_model = CVAEModel.from_config(flagship_config(std=0.0))
+
+    def first_step(p, feats, cv, k):
+        init = [m.apply({"params": p}, feats, cv, rngs={"z": k},
+                        method=CVAEModel.decode_init)
+                for m in (model, mean_model)]
+        beams = jax.tree.map(lambda x: jnp.repeat(x, 3, axis=0), init[0])
+        bos = jnp.full((3 * feats.shape[0],), vocab.bos_id, jnp.int32)
+        _, h = model.apply({"params": p}, beams, bos,
+                           method=CVAEModel.decode_step_hidden)
+        return (dense(p["imf_emb"], feats), init[1][0][1], init[0][0][1],
+                h)
+
+    parts = [[np.asarray(x) for x in jax.jit(first_step)(*on(mesh))]
+             for mesh in (mesh4, mesh1)]
+    for name, a, b in zip(("image embedding", "initial h, z at its mean",
+                           "initial h, z drawn", "step-1 h"), *parts):
+        log("4", f"{name}, 4 vs 1 card: differing elements "
+                 f"{np.mean(a != b):.4f}, max|d| {np.max(np.abs(a - b)):.3e}")
+
+    def beam(cfg, mesh, kernel=None):
+        fn = make_decode_fns(CVAEModel.from_config(cfg), cfg, vocab,
+                             mesh=mesh, kernel=kernel)["beam_search"]
+        return lambda rows=slice(None): [np.asarray(x)
+                                         for x in fn(*on(mesh, rows))]
+
+    # token for token: one card decoding the four cards' quarters, with z
+    # at its mean (decode std 0), so each quarter's inputs are the same
+    cfg0 = flagship_config(beam_size=3, std=0.0)
+    t4, s4 = beam(cfg0, mesh4)()
+    one = beam(cfg0, mesh1)
+    q = GEN_BATCH // 4
+    t1, s1 = (np.concatenate(x) for x in
+              zip(*(one(slice(i * q, (i + 1) * q)) for i in range(4))))
+    ds = float(np.max(np.abs(s4 - s1)))
+    log("4", f"beam3 decode 4 cards vs 1 card on the same quarters (z at "
+             f"its mean): identical captions "
+             f"{np.mean(np.all(t4 == t1, axis=1)):.5f}, max|dscore| "
              f"{ds:.3e}")
-    check(same.mean() >= DP_SAME_CAPTIONS, "sharded decode tokens differ")
-    check(ds < DP_SCORE_ATOL, "sharded decode scores differ")
+    check(np.array_equal(t4, t1) and ds <= 1e-5,
+          "sharded decode differs from one card on the same quarters")
+
+    # the whole batch on one card, on each decode path
+    for name, cfg, kernel in (
+            ("bf16 kernel", flagship_config(beam_size=3), None),
+            ("bf16 plain XLA", flagship_config(beam_size=3), False),
+            ("float32", flagship_config(beam_size=3,
+                                        compute_dtype="float32"), None)):
+        (t4, s4), (t1, s1) = (beam(cfg, mesh, kernel)()
+                              for mesh in (mesh4, mesh1))
+        same = np.all(t4 == t1, axis=1)
+        per_card = [float(x.mean()) for x in np.split(same, 4)]
+        ds = float(np.abs(s4 - s1)[same].max())
+        log("4", f"beam3 decode 4 vs 1 card, {name}: identical captions "
+                 f"{same.mean():.5f} of {GEN_BATCH} (per card "
+                 f"{per_card}), max|dscore| on them {ds:.3e}")
+        check(same.mean() >= DP_SAME_CAPTIONS
+              and min(per_card) >= DP_SAME_PER_CARD,
+              f"sharded {name} decode tokens differ")
+        check(ds < DP_SCORE_ATOL, f"sharded {name} decode scores differ")
 
 
 def main(argv=None) -> None:

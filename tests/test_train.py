@@ -122,6 +122,27 @@ def test_train_step_ag_prior():
     assert float(m["kld"]) != 0.0
 
 
+def test_loss_fn_gradient_is_the_train_steps():
+    """make_loss_fn is the objective the step differentiates: its loss
+    and gradient norm at a step equal the step's metrics."""
+    from vae_captioning.train import _flatten_batch, make_loss_fn
+    cfg = small_config(prior="AG", use_c_v=True)
+    model, params = init_model(cfg, jax.random.PRNGKey(0))
+    tx = make_optimizer(cfg)
+    step = make_train_step(model, tx, cfg, donate=False)
+    args = [jnp.asarray(x) for x in _flatten_batch(make_host_batch())]
+    rng = jax.random.PRNGKey(1)
+    state, _ = step(TrainState.create(params, tx), *args, rng)
+    _, m = step(state, *args, rng)
+    grads, losses = jax.jit(jax.grad(make_loss_fn(model, cfg),
+                                     has_aux=True))(
+        state.params, state.step, *args, rng)
+    np.testing.assert_allclose(float(losses["loss"]), float(m["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(optax.global_norm(grads)),
+                               float(m["grad_norm"]), rtol=1e-5)
+
+
 def test_train_step_bias_fold_matches_dense():
     """Config.ce_bias_fold ([h ‖ 1] @ [[W],[b]] logits head) must track
     the Dense path: same param tree, losses equal to the one-extra-bf16-

@@ -11,7 +11,7 @@ import pytest
 from vae_captioning.models.cvae import compute_loss
 from vae_captioning.models.encoder import Encoder
 from vae_captioning.ops import distributions as dist
-from vae_captioning.ops.decoding import _gather_beams, _select_cols
+from vae_captioning.ops.decoding import _gather_beams
 from vae_captioning.ops.layers import dense
 from vae_captioning.ops.lstm import LSTMStack
 
@@ -161,6 +161,25 @@ def test_latent_draw_and_projection_match_numpy():
                                atol=1e-4)
 
 
+def test_decode_z_at_std_zero_is_the_projected_mean():
+    """Decode std 0 draws nothing: the z input is the projected prior
+    mean, the limit of the draw as std → 0."""
+    from vae_captioning.models.decoder import Decoder
+    B, KZ, L, E = 6, 5, 4, 3
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(KZ * L, E)).astype(np.float32)
+    b = rng.normal(size=(E,)).astype(np.float32)
+    mean = rng.normal(size=(B, L)).astype(np.float32)
+    params = {"z_rnn": {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)}}
+    dec = Decoder(vocab_size=10, embed_size=E, hidden_size=4)
+    key = jax.random.PRNGKey(2)
+    got = dec.gen_z_embedding(params, key, jnp.asarray(mean), 0.0, KZ)
+    want = mean @ w.reshape(KZ, L, E).sum(0) + b
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)
+    tiny = dec.gen_z_embedding(params, key, jnp.asarray(mean), 1e-6, KZ)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(tiny), atol=1e-4)
+
+
 @pytest.mark.parametrize("time_major", [False, True])
 def test_ce_loss_matches_numpy(time_major):
     rng = np.random.default_rng(5)
@@ -183,15 +202,6 @@ def test_ce_loss_matches_numpy(time_major):
     np.testing.assert_allclose(float(got["rec_loss"]),
                                (ce * mask).sum() / mask.sum(), rtol=1e-5)
     assert float(got["kld"]) == 0.0
-
-
-def test_select_cols_matches_numpy():
-    rng = np.random.default_rng(6)
-    x = rng.integers(0, 100, size=(5, 9)).astype(np.int32)
-    idx = rng.integers(0, 9, size=(5, 3)).astype(np.int32)
-    np.testing.assert_array_equal(
-        np.asarray(_select_cols(jnp.asarray(x), jnp.asarray(idx))),
-        x[np.arange(5)[:, None], idx])
 
 
 def test_gather_beams_matches_numpy():

@@ -109,6 +109,8 @@ class Decoder:
         hi = jax.lax.Precision.HIGHEST
         w_sum = kernel.reshape(n_samples, L, E).sum(axis=0)  # [L, E]
         mean_part = jnp.dot(z_mean, w_sum, precision=hi) + bias
+        if std == 0:
+            return mean_part  # z at its mean: nothing to draw
         cov = jnp.dot(kernel.T, kernel, precision=hi)        # [E, E]
         jitter = 1e-6 * jnp.max(jnp.diagonal(cov))
         chol = jnp.linalg.cholesky(cov + jitter * jnp.eye(E))

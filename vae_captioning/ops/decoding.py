@@ -123,11 +123,6 @@ class BeamResult(NamedTuple):
     scores: jax.Array   # [B, beam] (length-normalized; raw logp if partial)
 
 
-def _select_cols(x: jax.Array, idx: jax.Array) -> jax.Array:
-    """``x[b, idx[b, j]]`` for x [B, W], idx [B, J]."""
-    return jnp.take_along_axis(x, idx, axis=1)
-
-
 def _gather_beams(tree: Any, beam_idx: jax.Array, B: int, beam: int) -> Any:
     """Reindex leading [B*beam, ...] leaves by per-image beam indices."""
     def gather(leaf):
@@ -226,13 +221,13 @@ def beam_search(
             [fin_step, jnp.full((B, K * K), 1, jnp.int32)
              * t.astype(jnp.int32)], axis=1)
         all_parent = jnp.concatenate([fin_parent, cand_parent_row], axis=1)
-        new_fin_step = _select_cols(all_step, keep)
-        new_fin_parent = _select_cols(all_parent, keep)
+        new_fin_step = jnp.take_along_axis(all_step, keep, axis=1)
+        new_fin_parent = jnp.take_along_axis(all_parent, keep, axis=1)
 
         # ---- alive pool: best K non-EOS continuations
         alive_cand = jnp.where(is_eos, NEG_INF, top_logp)
         new_alive_logp, alive_keep = jax.lax.top_k(alive_cand, K)  # [B, K]
-        new_tokens = _select_cols(token_idx, alive_keep)
+        new_tokens = jnp.take_along_axis(token_idx, alive_keep, axis=1)
         parent_of_alive = alive_keep // K   # beam-major candidate layout
         carry = _gather_beams(carry, parent_of_alive, B, K)
 
@@ -300,10 +295,10 @@ def beam_search(
     def back(ptr, inp):
         s, bp_s, tok_s = inp
         active = s < step_e                                    # [B, K]
-        tok = _select_cols(tok_s, ptr)
+        tok = jnp.take_along_axis(tok_s, ptr, axis=1)
         out = jnp.where(active, tok, 0)
         out = jnp.where(jnp.logical_and(s == step_e, emit_eos), eos_id, out)
-        nxt = _select_cols(bp_s, ptr)
+        nxt = jnp.take_along_axis(bp_s, ptr, axis=1)
         ptr = jnp.where(active, nxt, ptr)
         return ptr, out
 

@@ -178,38 +178,46 @@ def _flatten_batch(batch: Batch):
             batch.cluster_vectors)
 
 
-def make_train_step(model: CVAEModel, tx: optax.GradientTransformation,
-                    cfg: Config, donate: bool = True):
-    """Build the jitted train step.  Called once per caption-length
-    bucket shape; XLA caches compilations per shape."""
+def make_loss_fn(model: CVAEModel, cfg: Config):
+    """The training objective: ``(params, step, features, enc, dec,
+    lengths, c_v, rng) → (loss, losses dict)``, with the step's latent,
+    cluster and dropout draws and KL annealing derived from ``step``."""
     force_one = cfg.fine_tune or cfg.restore
     cluster_means = jnp.asarray(dist.init_cluster_means(
         cfg.num_clusters, cfg.latent_size, cfg.seed))
     needs_cv = cfg.needs_cluster_vectors
 
-    def step_fn(state: TrainState, features, enc, dec, lengths, c_v, rng):
-        step_rng = jax.random.fold_in(rng, state.step)
+    def loss_fn(params, step, features, enc, dec, lengths, c_v, rng):
+        step_rng = jax.random.fold_in(rng, step)
         rngs = {"z": jax.random.fold_in(step_rng, 0),
                 "sample": jax.random.fold_in(step_rng, 1),
                 "dropout": jax.random.fold_in(step_rng, 2)}
-        annealing = dist.kl_annealing(state.step, cfg.ann_param, force_one)
+        annealing = dist.kl_annealing(step, cfg.ann_param, force_one)
+        # time-major: logits come out [T, B·K, V] (the LSTM scan's
+        # native layout) and the s32 labels are transposed to match,
+        # which keeps activation relayouts out of the step
+        out = model.apply({"params": params}, features, enc, dec,
+                          lengths, c_v if needs_cv else None,
+                          deterministic=False, rngs=rngs, time_major=True)
+        losses = compute_loss(
+            out, enc.T, prior=cfg.prior, no_encoder=cfg.no_encoder,
+            cluster_means=cluster_means, annealing=annealing,
+            gmm_true_kl=cfg.gmm_true_kl, ag_kl_sum=cfg.ag_kl_sum,
+            time_major=True)
+        return losses["loss"], losses
 
-        def loss_fn(params):
-            # time-major: logits come out [T, B·K, V] (the LSTM scan's
-            # native layout) and the s32 labels are transposed to match,
-            # which keeps activation relayouts out of the step
-            out = model.apply({"params": params}, features, enc, dec,
-                              lengths, c_v if needs_cv else None,
-                              deterministic=False, rngs=rngs,
-                              time_major=True)
-            losses = compute_loss(
-                out, enc.T, prior=cfg.prior, no_encoder=cfg.no_encoder,
-                cluster_means=cluster_means, annealing=annealing,
-                gmm_true_kl=cfg.gmm_true_kl, ag_kl_sum=cfg.ag_kl_sum,
-                time_major=True)
-            return losses["loss"], losses
+    return loss_fn
 
-        grads, metrics = jax.grad(loss_fn, has_aux=True)(state.params)
+
+def make_train_step(model: CVAEModel, tx: optax.GradientTransformation,
+                    cfg: Config, donate: bool = True):
+    """Build the jitted train step.  Called once per caption-length
+    bucket shape; XLA caches compilations per shape."""
+    loss_fn = make_loss_fn(model, cfg)
+
+    def step_fn(state: TrainState, features, enc, dec, lengths, c_v, rng):
+        grads, metrics = jax.grad(loss_fn, has_aux=True)(
+            state.params, state.step, features, enc, dec, lengths, c_v, rng)
         metrics["grad_norm"] = optax.global_norm(grads)
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         params = optax.apply_updates(state.params, updates)
